@@ -1,8 +1,8 @@
 // Native contig assembler: order-exact graph pruning + readout.
 //
-// C++ transcription of dbg_assembly_tpu/contig/refassemble.py (the byte-
+// C++ transcription of dbg_assembly/contig/refassemble.py (the byte-
 // parity path replaying DBG_contig/contig.cpp:54-1046 semantics over the
-// TPU-aggregated node table).  The Python module remains the readable
+// device-aggregated node table).  The Python module remains the readable
 // specification and fallback (DBG_PY_ASSEMBLE=1); this engine makes the
 // host tail run at reference-binary speed.
 //

@@ -1,5 +1,5 @@
 // Native correction engine — production-rate implementation of the 5-phase
-// k-mer-spectrum corrector (see dbg_assembly_tpu/correct/engine.py, which is
+// k-mer-spectrum corrector (see dbg_assembly/correct/engine.py, which is
 // the readable parity spec; both implement the behavior of
 // correct_error/correct.cpp:146-635 and are cross-checked in
 // tests/test_native_correct.py).

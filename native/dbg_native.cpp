@@ -1,6 +1,6 @@
-// Native runtime helpers for dbg_assembly_tpu (loaded via ctypes).
+// Native runtime helpers for dbg_assembly (loaded via ctypes).
 //
-// These cover the host-side sequential tails where the TPU bulk path needs
+// These cover the host-side sequential tails where the device bulk path needs
 // the reference's EMERGENT ordering reproduced exactly:
 //
 //  * jenkins64 / find_next_prime — hash sizing/placement rules of the

@@ -1,7 +1,7 @@
 // Native k-mer ingest: streaming canonical chop + open-addressing
 // aggregation for the CPU backend.
 //
-// The TPU path chops/aggregates with fused vector ops + sort + segment
+// The device path chops/aggregates with fused vector ops + sort + segment
 // reduce (contig/graph.py); this engine is its host-side twin for
 // environments where the compute devices are CPU (scale validation,
 // file-fed runs behind a slow device link).  Same aggregate semantics:

@@ -1,7 +1,7 @@
 // Native positional-index read mapper: seed-and-extend with the
 // first-qualifying-seed early exit.
 //
-// C++ twin of dbg_assembly_tpu/scaffold/index.py (which stays as the
+// C++ twin of dbg_assembly/scaffold/index.py (which stays as the
 // readable specification and DBG_PY_MAP=1 fallback).  Same semantics:
 // index = canonical contig k-mers -> (contig id, offset, strand, unique),
 // first-inserted payload kept and duplicates clear the uniqueness bit;

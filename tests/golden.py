@@ -1,6 +1,6 @@
 """Golden-output harness: runs the shipped reference binaries (prebuilt x86,
 CPU-runnable — SURVEY.md section 4) on locally simulated reads and caches the
-results for byte-level comparison against the TPU framework.
+results for byte-level comparison against this framework.
 
 All reference invocations use -t 1 where a thread count exists, so outputs are
 deterministic (hash insertion order and branch-processing order depend on it).

@@ -7,7 +7,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from dbg_assembly_tpu.kmer import stats
+from dbg_assembly.kmer import stats
 
 
 @pytest.mark.parametrize("n", [1, 5, 4095, 4096, 4097, 10000])

@@ -9,7 +9,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import golden  # noqa: E402
-from dbg_assembly_tpu.cli import main  # noqa: E402
+from dbg_assembly.cli import main  # noqa: E402
 
 
 def _write_fq(path, n=50, L=80, seed=0):

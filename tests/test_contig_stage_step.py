@@ -8,9 +8,9 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from dbg_assembly_tpu.contig import pointer_doubling as pd
-from dbg_assembly_tpu.contig.graph import GraphBuilder
-from dbg_assembly_tpu.contig.refassemble import AssembleParams
+from dbg_assembly.contig import pointer_doubling as pd
+from dbg_assembly.contig.graph import GraphBuilder
+from dbg_assembly.contig.refassemble import AssembleParams
 
 
 def test_contig_stage_step_matches_host():
@@ -61,7 +61,7 @@ def test_contig_stage_step_matches_host():
 
 
 def test_native_succ_build_matches_xla_twin():
-    from dbg_assembly_tpu import native
+    from dbg_assembly import native
     rng = np.random.default_rng(5)
     genome = rng.integers(0, 4, 3000).astype(np.uint8)
     starts = rng.integers(0, 3000 - 60, 400)
@@ -87,7 +87,7 @@ def test_native_resolve_chains_matches_xla():
     """Fuzz resolve_chains_host against the XLA doubling program on
     random functional graphs (chains, merges, cycles, rho shapes):
     exact (e, dist) on non-cyclic states, cyclic flag everywhere."""
-    from dbg_assembly_tpu import native
+    from dbg_assembly import native
     rng = np.random.default_rng(7)
     for trial in range(6):
         n = int(rng.integers(3, 2000))
@@ -107,7 +107,7 @@ def test_native_resolve_chains_matches_xla():
 
 
 def test_native_resolve_chains_on_real_graph():
-    from dbg_assembly_tpu import native
+    from dbg_assembly import native
     rng = np.random.default_rng(9)
     genome = rng.integers(0, 4, 3000).astype(np.uint8)
     starts = rng.integers(0, 3000 - 60, 400)
@@ -132,7 +132,7 @@ def test_native_resolve_chains_on_real_graph():
 
 
 def test_native_collect_heads_matches_numpy():
-    from dbg_assembly_tpu import native
+    from dbg_assembly import native
     rng = np.random.default_rng(11)
     for _ in range(5):
         M = int(rng.integers(4, 800))

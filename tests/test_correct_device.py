@@ -8,11 +8,11 @@ the host engine by the pipeline anyway)."""
 import numpy as np
 import pytest
 
-from dbg_assembly_tpu import dna
-from dbg_assembly_tpu.kmer import count as kc
-from dbg_assembly_tpu.correct.engine import (CorrectParams, ReadCorrector,
+from dbg_assembly import dna
+from dbg_assembly.kmer import count as kc
+from dbg_assembly.correct.engine import (CorrectParams, ReadCorrector,
                                              classify_regions_batch)
-from dbg_assembly_tpu.correct import device as dev
+from dbg_assembly.correct import device as dev
 
 
 def _make_case(seed, n_reads=120, read_len=80, k=13, genome_len=4000,
@@ -77,7 +77,7 @@ def test_device_matches_host(seed):
 def test_pipeline_jax_engine_matches_native(tmp_path):
     """Full correct_file through engine='jax' vs engine='native'."""
     import gzip
-    from dbg_assembly_tpu.correct import pipeline
+    from dbg_assembly.correct import pipeline
 
     ascii_seq, codes, lengths, bitmap = _make_case(7, n_reads=60)
     fq = str(tmp_path / "reads.fq.gz")
@@ -95,3 +95,41 @@ def test_pipeline_jax_engine_matches_native(tmp_path):
     jax_stat = open(fq + ".correct.stat").read()
     assert ref_out == jax_out
     assert ref_stat == jax_stat
+
+
+def test_bbt_compact_takes_first_active_rows():
+    """Active-row compaction runs the first compact_c active rows, in row
+    order, exactly as the full-width beam search does, and flags the active
+    rows past that width for host fallback without touching them."""
+    import functools
+    import jax
+    import jax.numpy as jnp
+
+    ascii_seq, codes, lengths, bitmap = _make_case(5, n_reads=64)
+    k, C = 13, 8
+    N, L = ascii_seq.shape
+    rng = np.random.default_rng(11)
+    active = rng.random(N) < 0.5
+    assert active.sum() > C
+    bm = jnp.asarray(bitmap)
+    args = (jnp.asarray(ascii_seq), jnp.asarray(lengths),
+            lambda idx: dev._probe(bm, idx), jnp.asarray(active),
+            jnp.full((N,), k + 1, jnp.int32), jnp.asarray(lengths),
+            jnp.full((N,), 2, jnp.int32), jnp.asarray(lengths) + 1)
+    kw = dict(k=k, rightward=True, is_modify_trimmed=True)
+    full = jax.jit(functools.partial(dev._bbt_impl, *args[:3], **kw))(
+        *args[3:])
+    compact = jax.jit(functools.partial(dev._bbt_compact, *args[:3],
+                                        compact_c=C, **kw))(*args[3:])
+    full = [np.asarray(x) for x in full]
+    new_ascii, num, lnt, last, ovf = (np.asarray(x) for x in compact)
+
+    rank = np.cumsum(active) - 1
+    ran = active & (rank < C)
+    late = active & (rank >= C)
+    for got, want in zip((new_ascii, num, lnt, last), full[:4]):
+        np.testing.assert_array_equal(got[ran], want[ran])
+    np.testing.assert_array_equal(ovf[ran], full[4][ran])
+    assert ovf[late].all() and not ovf[~active].any()
+    np.testing.assert_array_equal(new_ascii[~ran], ascii_seq[~ran])
+    assert not num[~ran].any()

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from dbg_assembly_tpu.kmer import count as kc
+from dbg_assembly.kmer import count as kc
 
 
 def test_count_stats_matches_compacted_path():

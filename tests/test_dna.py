@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from dbg_assembly_tpu import dna
+from dbg_assembly import dna
 
 
 def ref_revcomp_int(kbit: int, k: int) -> int:

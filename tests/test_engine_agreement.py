@@ -19,9 +19,9 @@ import os
 import numpy as np
 import pytest
 
-from dbg_assembly_tpu import dna
-from dbg_assembly_tpu.contig import graph as G
-from dbg_assembly_tpu.contig.refassemble import AssembleParams, RefAssembler
+from dbg_assembly import dna
+from dbg_assembly.contig import graph as G
+from dbg_assembly.contig.refassemble import AssembleParams, RefAssembler
 
 K = 15
 
@@ -60,7 +60,7 @@ def test_aggregate_batch_jax_np_native_agree():
     (un, ln, rn, fn, cn,
      n_valid_np) = G._aggregate_batch_np(codes, lengths, K, 0)
 
-    from dbg_assembly_tpu import native
+    from dbg_assembly import native
     ni = native.NativeIngest(K)
     ni.add(codes, lengths, 0)
     uk, lk, rk, fk, total = ni.extract()
@@ -129,7 +129,7 @@ def test_assemble_native_vs_python_artifacts(tmp_path, monkeypatch):
 
 
 def test_map_native_vs_python(monkeypatch):
-    from dbg_assembly_tpu.scaffold import index as ix
+    from dbg_assembly.scaffold import index as ix
     rng = np.random.default_rng(9)
     contigs = [bytes(bytearray(b"ACGT"[c]
                                for c in rng.integers(0, 4, n)))

@@ -24,7 +24,7 @@ def _first_diff(a: bytes, b: bytes, label: str):
 
 
 def test_clean_lowqual_golden(tmp_path):
-    from dbg_assembly_tpu.clean import lowqual
+    from dbg_assembly.clean import lowqual
 
     ds = golden.sim_dataset()
     fq = ds["libs"][0][0]
@@ -41,7 +41,7 @@ def test_clean_lowqual_golden(tmp_path):
 
 
 def test_clean_adapter_golden(tmp_path):
-    from dbg_assembly_tpu.clean import adapter
+    from dbg_assembly.clean import adapter
 
     ds = golden.sim_dataset()
     fq = ds["libs"][0][0]

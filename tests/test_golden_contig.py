@@ -47,8 +47,8 @@ def ref_contigs(cleaned_libs, tmp_path_factory):
 
 
 def test_contig_golden(ref_contigs, tmp_path):
-    from dbg_assembly_tpu.contig import pipeline
-    from dbg_assembly_tpu.contig.refassemble import AssembleParams
+    from dbg_assembly.contig import pipeline
+    from dbg_assembly.contig.refassemble import AssembleParams
 
     ref_paths, lib = ref_contigs
     prefix = str(tmp_path / "ours")

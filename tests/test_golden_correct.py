@@ -32,9 +32,9 @@ def _diff(a: bytes, b: bytes, label: str):
 
 
 def _run_correction_golden(tmpdir, ksize):
-    from dbg_assembly_tpu.kmer import kmerfreq
-    from dbg_assembly_tpu.correct import pipeline
-    from dbg_assembly_tpu.correct.engine import CorrectParams
+    from dbg_assembly.kmer import kmerfreq
+    from dbg_assembly.correct import pipeline
+    from dbg_assembly.correct.engine import CorrectParams
 
     ds = golden.sim_dataset()
     cleaned = []

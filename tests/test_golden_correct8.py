@@ -23,8 +23,8 @@ def _diff(a: bytes, b: bytes, label: str):
 
 
 def test_correct_8bit_golden(tmp_path):
-    from dbg_assembly_tpu.kmer import kmerfreq
-    from dbg_assembly_tpu.correct import pipeline
+    from dbg_assembly.kmer import kmerfreq
+    from dbg_assembly.correct import pipeline
 
     ds = golden.sim_dataset()
     cleaned = []

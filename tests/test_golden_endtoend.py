@@ -33,13 +33,13 @@ def _diff(a: bytes, b: bytes, label: str):
 
 
 def test_end_to_end(tmp_path):
-    from dbg_assembly_tpu.clean import lowqual, adapter
-    from dbg_assembly_tpu.kmer import kmerfreq
-    from dbg_assembly_tpu.correct import pipeline as corr
-    from dbg_assembly_tpu.correct.engine import CorrectParams
-    from dbg_assembly_tpu.contig import pipeline as ctg
-    from dbg_assembly_tpu.contig.refassemble import AssembleParams
-    from dbg_assembly_tpu.scaffold import map_pair, scaffold
+    from dbg_assembly.clean import lowqual, adapter
+    from dbg_assembly.kmer import kmerfreq
+    from dbg_assembly.correct import pipeline as corr
+    from dbg_assembly.correct.engine import CorrectParams
+    from dbg_assembly.contig import pipeline as ctg
+    from dbg_assembly.contig.refassemble import AssembleParams
+    from dbg_assembly.scaffold import map_pair, scaffold
 
     ds = golden.sim_dataset()
     ours_d = tmp_path / "ours"

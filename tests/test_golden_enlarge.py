@@ -1,4 +1,4 @@
-"""Hash enlargement + full-table degrade goldens (VERDICT r04 missing 2).
+"""Hash enlargement + full-table degrade goldens.
 
 A deliberately tiny -i makes the reference grow its table x2 between
 ingest buffers (enlarge_kmerset_parallel, kmerSet.cpp:132-189 — slot
@@ -44,8 +44,8 @@ def normalize(text: str) -> str:
 
 
 def _run_case(tmp_path, extra_flags, init_hash, max_doublings):
-    from dbg_assembly_tpu.contig import pipeline
-    from dbg_assembly_tpu.contig.refassemble import AssembleParams
+    from dbg_assembly.contig import pipeline
+    from dbg_assembly.contig.refassemble import AssembleParams
 
     if not os.path.exists(REF_BIN):
         pytest.skip("reference binary unavailable")

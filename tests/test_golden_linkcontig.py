@@ -73,7 +73,7 @@ def mapped(setup):
 
 @pytest.mark.parametrize("engine_env", [None, "DBG_JAX_MAP"])
 def test_map_reads_golden(setup, mapped, tmp_path, monkeypatch, engine_env):
-    from dbg_assembly_tpu.scaffold import map_reads
+    from dbg_assembly.scaffold import map_reads
 
     monkeypatch.delenv("DBG_PY_MAP", raising=False)
     monkeypatch.delenv("DBG_JAX_MAP", raising=False)
@@ -94,7 +94,7 @@ def test_map_reads_golden(setup, mapped, tmp_path, monkeypatch, engine_env):
 
 
 def test_link_contig_golden(setup, mapped, tmp_path):
-    from dbg_assembly_tpu.scaffold import link_contig
+    from dbg_assembly.scaffold import link_contig
 
     ref_prefix = os.path.join(setup["dir"], "ref_lc")
     golden.ref_link_contig(setup["contig_fa"], mapped["twoctg"], ref_prefix,
@@ -110,7 +110,7 @@ def test_link_contig_golden(setup, mapped, tmp_path):
 
 
 def test_link_supertig_golden(setup, mapped, tmp_path):
-    from dbg_assembly_tpu.scaffold import link_contig
+    from dbg_assembly.scaffold import link_contig
 
     # link_supertig extracts gap substrings with +/-250bp flanks around the
     # alignment midpoint (link_supertig.cpp:453-458) and THROWS

@@ -65,7 +65,7 @@ def ref_mapped(contig_and_reads):
 @pytest.mark.parametrize("engine_env", [None, "DBG_JAX_MAP"])
 def test_map_pair_golden(contig_and_reads, ref_mapped, tmp_path, monkeypatch,
                          engine_env):
-    from dbg_assembly_tpu.scaffold import map_pair
+    from dbg_assembly.scaffold import map_pair
 
     monkeypatch.delenv("DBG_PY_MAP", raising=False)
     monkeypatch.delenv("DBG_JAX_MAP", raising=False)
@@ -87,7 +87,7 @@ def test_map_pair_golden(contig_and_reads, ref_mapped, tmp_path, monkeypatch,
 
 
 def test_link_scaffold_golden(contig_and_reads, ref_mapped, tmp_path):
-    from dbg_assembly_tpu.scaffold import scaffold
+    from dbg_assembly.scaffold import scaffold
 
     cr = contig_and_reads
     # reference link_scaffold consumes the 2ctg lib written by ref map_pair

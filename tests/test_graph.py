@@ -1,7 +1,7 @@
 import numpy as np
 
-from dbg_assembly_tpu import dna
-from dbg_assembly_tpu.contig import graph
+from dbg_assembly import dna
+from dbg_assembly.contig import graph
 
 
 def naive_table(codes, lengths, k, max_read_len=250):
@@ -79,7 +79,7 @@ def test_edge_counter_saturation_matches_reference_semantics():
     kmerSet.cpp:341); occurrence counts stay exact.  All ingest paths must
     agree on the saturated values."""
     import numpy as np
-    from dbg_assembly_tpu.contig.graph import GraphBuilder
+    from dbg_assembly.contig.graph import GraphBuilder
 
     k = 13
     read = np.tile(np.array([0, 1, 2, 3, 1, 0, 3, 2], np.uint8), 8)[:60]

@@ -13,10 +13,10 @@ import conftest  # noqa: F401,E402  (forces cpu + 8 virtual devices)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from dbg_assembly_tpu import dna  # noqa: E402
-from dbg_assembly_tpu.parallel import halo  # noqa: E402
-from dbg_assembly_tpu.parallel.count_sharded import SENTINEL  # noqa: E402
-from dbg_assembly_tpu.parallel.mesh import data_mesh  # noqa: E402
+from dbg_assembly import dna  # noqa: E402
+from dbg_assembly.parallel import halo  # noqa: E402
+from dbg_assembly.parallel.count_sharded import SENTINEL  # noqa: E402
+from dbg_assembly.parallel.mesh import data_mesh  # noqa: E402
 
 
 @pytest.fixture(scope="module")

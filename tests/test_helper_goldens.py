@@ -34,7 +34,7 @@ def _rand_seq(rng, n):
 
 
 def test_filter_unpaired_matches_perl(tmp_path):
-    from dbg_assembly_tpu.utils.helpers import filter_unpaired_reads
+    from dbg_assembly.utils.helpers import filter_unpaired_reads
 
     rng = np.random.default_rng(5)
     rec1, rec2 = [], []
@@ -63,7 +63,7 @@ def test_filter_unpaired_matches_perl(tmp_path):
 
 
 def test_split_libfile_matches_perl(tmp_path):
-    from dbg_assembly_tpu.utils.helpers import split_libfile
+    from dbg_assembly.utils.helpers import split_libfile
 
     content = "a/b/reads_1.fq.gz\n\n/x/reads_2.fq.gz\nlast_no_newline"
     ours_lib = tmp_path / "ours.lib"
@@ -93,7 +93,7 @@ def _write_fasta(path, records, width=0):
 
 
 def test_rev_com_seq_matches_perl(tmp_path):
-    from dbg_assembly_tpu.utils.helpers import rev_com_seq_file
+    from dbg_assembly.utils.helpers import rev_com_seq_file
 
     rng = np.random.default_rng(9)
     recs = []
@@ -120,7 +120,7 @@ def _redecide_ref(script, contig_fa, small_fa, cutoff, cwd):
 
 
 def test_redecide_matches_perl(tmp_path):
-    from dbg_assembly_tpu.utils.helpers import redecide_contig_and_small
+    from dbg_assembly.utils.helpers import redecide_contig_and_small
 
     rng = np.random.default_rng(17)
     big, small = [], []
@@ -156,8 +156,8 @@ def test_merge_corrected_pair_matches_binary(tmp_path):
     merges (-j 1); our merger is applied to the binary's own corrected
     outputs and must reproduce .pair.fa.gz/.single.fa.gz/.pair.single.stat
     byte-for-byte (correct.cpp:851-922)."""
-    from dbg_assembly_tpu.kmer import kmerfreq
-    from dbg_assembly_tpu.utils.helpers import merge_corrected_pair
+    from dbg_assembly.kmer import kmerfreq
+    from dbg_assembly.utils.helpers import merge_corrected_pair
 
     ds = golden.sim_dataset()
     cleaned = []
@@ -218,7 +218,7 @@ def test_merge_assembly_matches_perl(tmp_path):
     """Aligned (Merged_illumina_pacbio) section is deterministic in the
     Perl (sort keys) — compared byte-for-byte.  Unaligned sections iterate
     Perl hash order — compared as id-normalized sets."""
-    from dbg_assembly_tpu.utils.merge_assembly import run as merge_run
+    from dbg_assembly.utils.merge_assembly import run as merge_run
 
     rng = np.random.default_rng(23)
     scafftigs, utgs = [], []

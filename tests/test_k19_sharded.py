@@ -1,8 +1,8 @@
-"""k=19 sharded-correction capacity demonstration (VERDICT r03 item 4).
+"""k=19 sharded-correction capacity demonstration.
 
 The k=19 1-bit table is 4^19 bits = 32 GiB (correct_error/main.cpp:163-173)
-— past a single v5e's 16 GiB HBM, which is the whole reason the corrector
-must run where the table lives: sharded, 4 GiB/device on 8.  This test
+— more than a small device's memory, which is why the corrector can run
+where the table lives: sharded, 4 GiB/device on 8.  This test
 builds the real 32 GiB table, shards it over the 8-device CPU mesh, runs
 the COMPLETE 5-phase corrector on it, and checks bit-equality against the
 host parity engine.
@@ -26,11 +26,11 @@ K = 19
 
 
 def test_k19_sharded_correction_matches_host_engine():
-    from dbg_assembly_tpu.correct import sharded
-    from dbg_assembly_tpu.correct.engine import (CorrectParams,
+    from dbg_assembly.correct import sharded
+    from dbg_assembly.correct.engine import (CorrectParams,
                                                  ReadCorrector,
                                                  classify_regions_batch)
-    from dbg_assembly_tpu.kmer import count as kc
+    from dbg_assembly.kmer import count as kc
     from jax.sharding import Mesh
 
     devs = jax.devices()

@@ -1,8 +1,9 @@
 import numpy as np
+import pytest
 
-from dbg_assembly_tpu import dna
-from dbg_assembly_tpu.kmer import count as kc
-from dbg_assembly_tpu.io import cz
+from dbg_assembly import dna
+from dbg_assembly.kmer import count as kc
+from dbg_assembly.io import cz
 
 
 def naive_counts(codes, lengths, k):
@@ -86,3 +87,25 @@ def test_cz_bytes_roundtrip(tmp_path):
     cz.write_cz_bytes(p, freqs)
     back = cz.read_cz_bytes(p, k)
     assert np.array_equal(freqs, back)
+
+
+@pytest.mark.gpu
+def test_count_batch_on_gpu_matches_numpy():
+    """The production device counter at a real batch width (200 000 PE250
+    reads, k=17, as KmerCounter feeds it) against numpy's unique."""
+    rng = np.random.default_rng(9)
+    k, N, L = 17, 200_000, 250
+    genome = rng.integers(0, 4, 2_000_000).astype(np.uint8)
+    starts = rng.integers(0, len(genome) - L, N)
+    codes = genome[starts[:, None] + np.arange(L)]
+    lengths = rng.integers(k - 1, L + 1, N).astype(np.int32)
+    for i in np.flatnonzero(lengths < L)[:1000]:
+        codes[i, lengths[i]:] = 4
+    uniq, counts, total = kc.count_batch(codes, lengths, k)
+    km = dna.rolling_kmers(codes, k)
+    can = np.minimum(km, dna.revcomp_kbit(km, k))
+    valid = np.arange(L - k + 1)[None, :] < (lengths[:, None] - k + 1)
+    want_u, want_c = np.unique(can[valid], return_counts=True)
+    np.testing.assert_array_equal(uniq, want_u)
+    np.testing.assert_array_equal(counts, want_c)
+    assert total == int(valid.sum())

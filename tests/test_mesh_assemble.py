@@ -11,12 +11,12 @@ import pytest
 
 import jax
 
-from dbg_assembly_tpu.contig.graph import GraphBuilder
-from dbg_assembly_tpu.contig.mesh_assemble import (MeshGraph,
+from dbg_assembly.contig.graph import GraphBuilder
+from dbg_assembly.contig.mesh_assemble import (MeshGraph,
                                                    assemble_doubling_mesh)
-from dbg_assembly_tpu.contig.pointer_doubling import assemble_doubling
-from dbg_assembly_tpu.contig.refassemble import AssembleParams
-from dbg_assembly_tpu.parallel import mesh as meshmod
+from dbg_assembly.contig.pointer_doubling import assemble_doubling
+from dbg_assembly.contig.refassemble import AssembleParams
+from dbg_assembly.parallel import mesh as meshmod
 
 ARTIFACTS = (".contig.seq.fa", ".contig.seq.depth", ".contig.small.fa",
              ".contig.small.depth", ".contig.tip.fa", ".contig.lowedge.fa",
@@ -72,15 +72,39 @@ def test_mesh_search_matches_host(table_k):
     p = _params(k)
     m = meshmod.data_mesh(8)
     g = MeshGraph(table, p, m)
-    rng = np.random.default_rng(0)
-    present = g.kmers[rng.integers(0, g.M, size=257)]
-    absent = rng.integers(0, 1 << (2 * k), size=131).astype(np.uint64)
-    q = np.concatenate([present, absent])
-    got = g._search(q)
-    idx = np.searchsorted(g.kmers, q)
-    idx = np.minimum(idx, g.M - 1)
-    exp = np.where(g.kmers[idx] == q, idx, -1)
-    assert np.array_equal(got, exp)
+    g.host_search_max = 0           # every search takes the collective
+    q = _probe(g, k, 257, 131)
+    assert np.array_equal(g._search(q), _host_answer(g, q))
+
+
+def test_mesh_small_search_stays_on_host(table_k, monkeypatch):
+    """Probes up to host_search_max k-mers are answered from the host copy
+    without a collective; larger ones go to the mesh; both agree."""
+    from dbg_assembly.contig import mesh_assemble as ma
+    table, k = table_k
+    g = MeshGraph(table, _params(k), meshmod.data_mesh(8))
+    calls = []
+    real = ma._search_sharded
+    monkeypatch.setattr(ma, "_search_sharded",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    small = _probe(g, k, 3, 2)
+    assert np.array_equal(g._search(small), _host_answer(g, small))
+    assert calls == []
+    big = _probe(g, k, g.host_search_max, 1)
+    assert np.array_equal(g._search(big), _host_answer(g, big))
+    assert calls == [1]
+
+
+def _probe(g, k, n_present, n_absent):
+    rng = np.random.default_rng(n_present + n_absent)
+    present = g.kmers[rng.integers(0, g.M, size=n_present)]
+    absent = rng.integers(0, 1 << (2 * k), size=n_absent).astype(np.uint64)
+    return np.concatenate([present, absent])
+
+
+def _host_answer(g, q):
+    idx = np.minimum(np.searchsorted(g.kmers, q), g.M - 1)
+    return np.where(g.kmers[idx] == q, idx, -1)
 
 
 def test_mesh_resolve_matches_host(table_k):
@@ -95,7 +119,7 @@ def test_mesh_resolve_matches_host(table_k):
     succ[10] = 11
     succ[11] = 12
     succ[12] = 10
-    from dbg_assembly_tpu.contig import pointer_doubling as pd
+    from dbg_assembly.contig import pointer_doubling as pd
     import jax.numpy as jnp
     e1, d1, c1 = (np.asarray(x) for x in
                   pd._resolve_chains(jnp.asarray(succ)))

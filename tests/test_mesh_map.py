@@ -6,10 +6,10 @@ import pytest
 
 import jax
 
-from dbg_assembly_tpu import dna
-from dbg_assembly_tpu.parallel import mesh as meshmod
-from dbg_assembly_tpu.scaffold import index as six
-from dbg_assembly_tpu.scaffold import sharded as msh
+from dbg_assembly import dna
+from dbg_assembly.parallel import mesh as meshmod
+from dbg_assembly.scaffold import index as six
+from dbg_assembly.scaffold import sharded as msh
 
 
 def test_mesh_map_matches_single_device():

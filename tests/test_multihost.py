@@ -20,8 +20,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_two_process_distributed_ingest(tmp_path):
     from tools.simulate_reads import make_genome, simulate_pe, write_fq_gz
-    from dbg_assembly_tpu import dna
-    from dbg_assembly_tpu.contig.graph import GraphBuilder
+    from dbg_assembly import dna
+    from dbg_assembly.contig.graph import GraphBuilder
 
     K = 17
     genome = make_genome(20_000, seed=31, repeat_frac=0.0)

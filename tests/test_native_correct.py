@@ -11,9 +11,9 @@ import golden  # noqa: E402
 
 
 def test_native_matches_python_engine(tmp_path):
-    from dbg_assembly_tpu.kmer import kmerfreq
-    from dbg_assembly_tpu.correct import pipeline
-    from dbg_assembly_tpu.correct.engine import CorrectParams
+    from dbg_assembly.kmer import kmerfreq
+    from dbg_assembly.correct import pipeline
+    from dbg_assembly.correct.engine import CorrectParams
 
     ds = golden.sim_dataset()
     p = ds["libs"][0][0]

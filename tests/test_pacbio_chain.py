@@ -34,7 +34,7 @@ def _synth_blasrm4(n=300, seed=0):
 
 
 def test_blasrm4_chain_matches_perl(tmp_path):
-    from dbg_assembly_tpu.utils import pacbio
+    from dbg_assembly.utils import pacbio
 
     raw = _synth_blasrm4()
     inp = tmp_path / "x.blasrm4"
@@ -74,7 +74,7 @@ def test_blasrm4_chain_matches_perl(tmp_path):
 
 
 def test_fullread_to_subread_matches_perl(tmp_path):
-    from dbg_assembly_tpu.utils import pacbio
+    from dbg_assembly.utils import pacbio
 
     rng = np.random.default_rng(1)
     lines = []

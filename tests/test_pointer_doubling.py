@@ -48,8 +48,8 @@ def read_depth_recs(path: str) -> list[bytes]:
 
 def build_table(genome_size, seed, err=0.0, cov=30.0, K=21):
     from tools.simulate_reads import make_genome, simulate_pe
-    from dbg_assembly_tpu.contig.graph import GraphBuilder
-    from dbg_assembly_tpu import dna
+    from dbg_assembly.contig.graph import GraphBuilder
+    from dbg_assembly import dna
 
     genome = make_genome(genome_size, seed=seed, repeat_frac=0.0)
     r1, q1, r2, q2 = simulate_pe(genome, 100, 300, cov, seed=seed + 1,
@@ -62,9 +62,9 @@ def build_table(genome_size, seed, err=0.0, cov=30.0, K=21):
 
 
 def run_both(table, K, tmp_path, **flags):
-    from dbg_assembly_tpu.contig.refassemble import (AssembleParams,
+    from dbg_assembly.contig.refassemble import (AssembleParams,
                                                      RefAssembler)
-    from dbg_assembly_tpu.contig import pointer_doubling as pd
+    from dbg_assembly.contig import pointer_doubling as pd
 
     params = AssembleParams(ksize=K, init_hash_size=0.001,
                             contig_len_cutoff=100, **flags)
@@ -138,8 +138,8 @@ def test_diploid_bubbles_match(tmp_path):
     """Two haplotypes -> real reconverging bubbles for the batched
     SNP/INDEL compare path."""
     from tools.simulate_reads import make_genome, simulate_pe
-    from dbg_assembly_tpu.contig.graph import GraphBuilder
-    from dbg_assembly_tpu import dna
+    from dbg_assembly.contig.graph import GraphBuilder
+    from dbg_assembly import dna
 
     K = 21
     rng = np.random.default_rng(9)

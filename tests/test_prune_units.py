@@ -3,9 +3,9 @@ unit tests; SURVEY.md section 4 calls for these)."""
 
 import numpy as np
 
-from dbg_assembly_tpu import dna
-from dbg_assembly_tpu.contig.graph import GraphBuilder
-from dbg_assembly_tpu.contig.refassemble import AssembleParams, RefAssembler
+from dbg_assembly import dna
+from dbg_assembly.contig.graph import GraphBuilder
+from dbg_assembly.contig.refassemble import AssembleParams, RefAssembler
 
 K = 15
 

@@ -27,8 +27,8 @@ def normalize(text: str) -> str:
 @pytest.mark.parametrize("n_reads", [250, 200])   # 200 = exact multiple of -b
 def test_contig_runlog_matches_reference(tmp_path, n_reads):
     from tools.simulate_reads import make_genome, simulate_pe
-    from dbg_assembly_tpu.contig import pipeline
-    from dbg_assembly_tpu.contig.refassemble import AssembleParams
+    from dbg_assembly.contig import pipeline
+    from dbg_assembly.contig.refassemble import AssembleParams
 
     if not os.path.exists(REF_BIN):
         pytest.skip("reference binary unavailable")

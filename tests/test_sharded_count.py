@@ -1,9 +1,9 @@
 import numpy as np
 import jax
 
-from dbg_assembly_tpu.parallel import mesh as meshmod
-from dbg_assembly_tpu.parallel import count_sharded
-from dbg_assembly_tpu.kmer import count as kc
+from dbg_assembly.parallel import mesh as meshmod
+from dbg_assembly.parallel import count_sharded
+from dbg_assembly.kmer import count as kc
 
 
 def test_sharded_count_matches_single_device():
@@ -45,7 +45,7 @@ def test_sharded_count_matches_single_device():
 
 
 def test_skewed_input_overflows_then_counts_exactly():
-    """Production drop policy (VERDICT r1 item 6): a batch whose k-mers all
+    """Production drop policy: a batch whose k-mers all
     land on one owner shard overflows the default bucket capacity; the
     exact wrapper must double capacity and still return exact counts."""
     k = 15
@@ -93,7 +93,7 @@ def test_skewed_ingest_exact_edges():
     uniq, lcnt, rcnt, first_idx, counts, n_unique, stats = \
         count_sharded.graph_ingest_step_exact(cs, ls, ksize=k, mesh=m)
     assert int(stats["dropped"]) == 0
-    from dbg_assembly_tpu.contig.graph import GraphBuilder
+    from dbg_assembly.contig.graph import GraphBuilder
     gb = GraphBuilder(k)
     gb.add(codes, lengths)
     ref = gb.finalize()

@@ -1,8 +1,8 @@
 import numpy as np
 
-from dbg_assembly_tpu.parallel import mesh as meshmod
-from dbg_assembly_tpu.parallel import count_sharded
-from dbg_assembly_tpu.contig.graph import GraphBuilder
+from dbg_assembly.parallel import mesh as meshmod
+from dbg_assembly.parallel import count_sharded
+from dbg_assembly.contig.graph import GraphBuilder
 
 
 def test_distributed_graph_ingest_matches_single_device():

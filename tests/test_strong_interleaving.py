@@ -10,7 +10,7 @@ import os
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from dbg_assembly_tpu.scaffold.link import LinkGraph
+from dbg_assembly.scaffold.link import LinkGraph
 
 
 def build(n, edges, freq=5):

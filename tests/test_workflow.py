@@ -1,7 +1,7 @@
 """Smoke test of the L5 orchestration driver (full pipeline, small data),
 parametrized over the contig readout: "exact" (byte-parity assembler) and
-"doubling" (the scalable pointer-doubling assembler) — VERDICT r03 item 7:
-the scalable path is exercised by L5, not only by its own fixtures."""
+"doubling" (the scalable pointer-doubling assembler), so the scalable path
+is exercised by L5, not only by its own fixtures."""
 
 import os
 import sys
@@ -35,8 +35,8 @@ if os.environ.get("DBG_SLOW_TESTS") == "1":
 
 @pytest.mark.parametrize("readout", _MODES)
 def test_run_full_pipeline(tmp_path, readout):
-    from dbg_assembly_tpu.workflow import PipelineConfig, run_full
-    from dbg_assembly_tpu.utils import nstat
+    from dbg_assembly.workflow import PipelineConfig, run_full
+    from dbg_assembly.utils import nstat
 
     ds = golden.sim_dataset()
     raw_libs = [(p1, p2, ins) for p1, p2, ins in ds["libs"]]

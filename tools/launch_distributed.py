@@ -11,12 +11,15 @@ Run ON EACH HOST (process 0 is the coordinator):
 
   python tools/launch_distributed.py \
       --coordinator host0:29500 --num-processes 2 --process-id <i> \
-      --lib reads.lib -k 21 [--cpu-devices N]
+      --lib reads.lib -k 21 [--cpu-devices N] [--local-device-ids 0,1]
 
-On CPU backends cross-process collectives ride Gloo; on TPU pods the ICI/
-DCN fabric is used automatically.  --cpu-devices forces a CPU backend
-with N local virtual devices (testing; see tests/test_multihost.py which
-launches two of these processes and checks the merged table).
+On CPU backends cross-process collectives ride Gloo; on GPUs, NCCL.
+--cpu-devices forces a CPU backend with N local virtual devices (testing;
+see tests/test_multihost.py which launches two of these processes and
+checks the merged table).  Several processes on ONE host must not share
+its cards: give each its own --local-device-ids (e.g. process i of 4 on a
+4-GPU host: --local-device-ids i); by default a process takes every card
+it sees.
 
 Each process prints its local view; process 0 additionally writes
 <prefix>.dist.json with global totals so the result can be checked
@@ -49,6 +52,9 @@ def main(argv=None):
     ap.add_argument("--batch-reads", type=int, default=100_000)
     ap.add_argument("--cpu-devices", type=int, default=0,
                     help="force CPU backend with this many local devices")
+    ap.add_argument("--local-device-ids", default=None,
+                    help="comma-separated local device ids this process "
+                    "owns (default: all it sees)")
     ap.add_argument("--out", default="dist")
     a = ap.parse_args(argv)
 
@@ -58,16 +64,19 @@ def main(argv=None):
             os.environ.get("XLA_FLAGS", "")
             + f" --xla_force_host_platform_device_count={a.cpu_devices}")
         jax.config.update("jax_platforms", "cpu")
+    local_ids = (None if a.local_device_ids is None
+                 else [int(i) for i in a.local_device_ids.split(",")])
     jax.distributed.initialize(a.coordinator,
                                num_processes=a.num_processes,
-                               process_id=a.process_id)
+                               process_id=a.process_id,
+                               local_device_ids=local_ids)
 
     import numpy as np
     import jax.numpy as jnp  # noqa: F401
     from jax.sharding import Mesh, PartitionSpec as P, NamedSharding
-    from dbg_assembly_tpu.io import fastq
-    from dbg_assembly_tpu.parallel import count_sharded
-    from dbg_assembly_tpu.contig.graph import _merge_parts, NodeTable
+    from dbg_assembly.io import fastq
+    from dbg_assembly.parallel import count_sharded
+    from dbg_assembly.contig.graph import _merge_parts, NodeTable
 
     pid = a.process_id
     devs = jax.devices()

@@ -34,7 +34,7 @@ import numpy as np  # noqa: E402
 
 
 def main(batch=65536):
-    from dbg_assembly_tpu.parallel import count_sharded, mesh as meshmod
+    from dbg_assembly.parallel import count_sharded, mesh as meshmod
 
     K = 21
     L = 150

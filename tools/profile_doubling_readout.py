@@ -24,9 +24,9 @@ import numpy as np  # noqa: E402
 
 
 def get_table(genome_mb: float):
-    from dbg_assembly_tpu.contig.graph import GraphBuilder, NodeTable
+    from dbg_assembly.contig.graph import GraphBuilder, NodeTable
     from tools.simulate_reads import make_genome, simulate_pe
-    from dbg_assembly_tpu import dna
+    from dbg_assembly import dna
 
     cache = f"/tmp/dbl_table_{genome_mb}.npz"
     if os.path.exists(cache):
@@ -57,8 +57,8 @@ def get_table(genome_mb: float):
 
 def main(genome_mb=4.6):
     os.environ.setdefault("DBG_PD_PROFILE", "1")
-    from dbg_assembly_tpu.contig.refassemble import AssembleParams
-    from dbg_assembly_tpu.contig import pointer_doubling as pd
+    from dbg_assembly.contig.refassemble import AssembleParams
+    from dbg_assembly.contig import pointer_doubling as pd
 
     t0 = time.time()
     table = get_table(genome_mb)

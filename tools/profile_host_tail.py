@@ -1,4 +1,4 @@
-"""Host-tail stage breakdown at E. coli scale (VERDICT r2 item 6).
+"""Host-tail stage breakdown at E. coli scale.
 
 Times each sub-stage of the contig and scaffold pipelines separately so
 the deficit vs the reference single-thread binaries can be attributed.
@@ -29,11 +29,11 @@ def t(msg, t0):
 
 
 def profile_contig(workdir):
-    from dbg_assembly_tpu.contig.graph import GraphBuilder
-    from dbg_assembly_tpu.contig.refassemble import (AssembleParams,
+    from dbg_assembly.contig.graph import GraphBuilder
+    from dbg_assembly.contig.refassemble import (AssembleParams,
                                                      RefAssembler)
-    from dbg_assembly_tpu.contig import pipeline as ctg
-    from dbg_assembly_tpu.io import fastq
+    from dbg_assembly.contig import pipeline as ctg
+    from dbg_assembly.io import fastq
 
     corr_lib = os.path.join(workdir, "corr.lib")
     files = ctg.read_file_list(corr_lib)
@@ -62,7 +62,7 @@ def profile_contig(workdir):
 
 
 def profile_scaffold(workdir, ins=400):
-    from dbg_assembly_tpu.scaffold import map_pair, scaffold
+    from dbg_assembly.scaffold import map_pair, scaffold
 
     ours_prefix = os.path.join(workdir, "ours_asm")
     ctg_ours = ours_prefix + ".contig.seq.fa"

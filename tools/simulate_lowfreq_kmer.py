@@ -1,11 +1,11 @@
-"""Shim: the implementation moved to dbg_assembly_tpu.utils.simulate_lowfreq
+"""Shim: the implementation moved to dbg_assembly.utils.simulate_lowfreq
 so the CLI can surface it (reference ships it as an invocable tool,
 correct_error/simulate_lowfreq_kmer.cpp)."""
 import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from dbg_assembly_tpu.utils.simulate_lowfreq import (  # noqa: F401,E402
+from dbg_assembly.utils.simulate_lowfreq import (  # noqa: F401,E402
     read_fasta_seqs, run)
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from dbg_assembly_tpu import native  # noqa: E402
+from dbg_assembly import native  # noqa: E402
 
 REF = "/root/reference/link_scaffold/link_scaffold"
 

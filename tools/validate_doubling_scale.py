@@ -66,11 +66,11 @@ def n50(lens):
 
 def main(genome_mb=4.6):
     from tools.simulate_reads import make_genome, simulate_pe
-    from dbg_assembly_tpu import dna
-    from dbg_assembly_tpu.contig.graph import GraphBuilder
-    from dbg_assembly_tpu.contig.refassemble import (AssembleParams,
+    from dbg_assembly import dna
+    from dbg_assembly.contig.graph import GraphBuilder
+    from dbg_assembly.contig.refassemble import (AssembleParams,
                                                      RefAssembler)
-    from dbg_assembly_tpu.contig import pointer_doubling as pd
+    from dbg_assembly.contig import pointer_doubling as pd
 
     t_all = time.time()
 

@@ -1,5 +1,5 @@
 """Sanity-check DISTRIBUTED.md's communication-volume model against the
-COMPILED program (VERDICT r04 weak 5).
+COMPILED program.
 
 The model claims the distributed ingest moves ~16 B per k-mer slot
 through all_to_all (8 B key + 8 B packed payload), flat per-device in D.
@@ -48,8 +48,8 @@ def op_bytes(line: str):
 
 
 def main():
-    from dbg_assembly_tpu.parallel import mesh as meshmod
-    from dbg_assembly_tpu.parallel import count_sharded
+    from dbg_assembly.parallel import mesh as meshmod
+    from dbg_assembly.parallel import count_sharded
 
     D = 8
     m = meshmod.data_mesh(D)
